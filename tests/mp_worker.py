@@ -39,7 +39,8 @@ def _setup_env() -> None:
     ]
     os.environ["XLA_FLAGS"] = " ".join(kept)
     # two jax processes must never share the persistent compile cache
-    os.environ["VOXELHASHING_NO_COMPILE_CACHE"] = "1"
+    # (the package itself skips it on a CPU-only platform)
+    os.environ.pop("JAX_COMPILATION_CACHE_DIR", None)
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tests"))
 

@@ -2,7 +2,7 @@
 
 In a continuous-closure regime (every keyframe insert accepts a loop
 edge — lap 2 of an endurance run) per-closure BA + reintegration
-dominated wall-clock (17 fps vs 30.6 single-lap, BENCH_NOTES r3).  The
+dominated wall-clock.  The
 deferral window batches accepted closures into one solve: these tests
 pin the trigger semantics (edge-count batch, age bound, forced flush)
 by stubbing the candidate ICP so every insert accepts a loop edge.

@@ -1,4 +1,4 @@
-"""BA corrections must reach the map (VERDICT r1 item 4).
+"""BA corrections must reach the map.
 
 Two levels:
 - mechanism: after a known rigid correction D of every keyframe pose,

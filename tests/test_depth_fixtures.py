@@ -7,7 +7,7 @@ with full physical Kinect v1 sensor statistics (z^2 axial noise, edge
 shadowing, dropouts, flying pixels, 1/8-px disparity quantization —
 tools/make_depth_fixtures.py).  This test is the non-synthetic-path
 gate: real PNG files on disk, decoded by the native codec, through the
-robust frontend and the tracker (VERDICT r3 missing item 1).
+robust frontend and the tracker.
 """
 
 import os
@@ -109,8 +109,7 @@ def test_keyframe_backend_closes_loop_on_fixture_files():
     the keyframe backend end to end on the disk-file path: keyframes
     insert, the end-of-sweep revisit passes the loop acceptance gates
     (observability + robust kernels), BA runs, and the corrected
-    trajectory closes the ring (VERDICT r4 item 5 — previously the
-    fixture path was frontend-only)."""
+    trajectory closes the ring."""
     import dataclasses
 
     from voxelhashing_demo_tpu.models import keyframe_slam

@@ -3,7 +3,7 @@
 A 16 cm block at 0.3-0.5 m with fx~517 projects ~140-280 px of extent; a
 fixed pixel margin culls border blocks whose centers fall off-screen while
 their voxels still project inside, causing integration/splat seams at image
-borders at close range (VERDICT round 1, weak #2).  The margin must scale
+borders at close range.  The margin must scale
 with block_radius * f / z.
 """
 

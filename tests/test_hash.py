@@ -267,3 +267,44 @@ def test_integration_order_independent():
                                np.asarray(s_b)[known], atol=1e-5)
     np.testing.assert_allclose(np.asarray(w_a)[known],
                                np.asarray(w_b)[known], atol=1e-4)
+
+
+def test_integrate_gather_matches_numpy_at_640x480():
+    """One 128-block chunk of ``integrate`` at the flagship image size
+    against numpy indexing of the depth image and the Curless-Levoy
+    update (chip_smoke.ref_integrate, the reference the card is held to).
+    Voxels within 1e-3 px of a rounding edge are left out: float32 may
+    round them to the neighbouring pixel."""
+    import chip_smoke
+    from voxelhashing_demo_tpu.ops import preprocess as pre
+    from voxelhashing_demo_tpu.utils import synthetic
+
+    cam = CameraConfig()
+    assert (cam.width, cam.height) == (640, 480)
+    hcfg = HashConfig(num_buckets=8192, bucket_size=4, num_blocks=8192,
+                      max_active=4096, max_new_per_frame=4096)
+    fus = FusionConfig(voxel_size=0.02, truncation=0.08)
+    depths, gt = synthetic.make_room_sweep(cam, 2, sweep_deg=20.0,
+                                           noise_seed=1)
+    frames = [pre.preprocess(jnp.asarray(d), cam) for d in depths]
+    poses = [jnp.asarray(T) for T in gt]
+    hmap = hash_ops.create(hcfg)
+    for f, T in zip(frames, poses):
+        hmap, active, _ = hash_ops.fuse_frame(hmap, f, T, cam, hcfg, fus)
+    C = hcfg.integrate_chunk
+    assert int(active.count) >= C
+    chunk = hash_ops.ActiveSet(blocks=active.blocks[:C],
+                               ptrs=active.ptrs[:C], count=jnp.int32(C))
+    out = hash_ops.integrate(hmap, chunk, hcfg, frames[0].depth, poses[1],
+                             cam, fus)
+    ptrs = np.asarray(chunk.ptrs)
+    ts, ws, cmp = chip_smoke.ref_integrate(
+        np.asarray(chunk.blocks), ptrs, np.asarray(hmap.tsdf),
+        np.asarray(hmap.weight), np.asarray(frames[0].depth),
+        np.asarray(poses[1]), cam, hcfg, fus)
+    assert cmp.mean() > 0.99
+    assert np.any(np.asarray(out.weight)[ptrs] != np.asarray(hmap.weight)[ptrs])
+    np.testing.assert_allclose(np.asarray(out.tsdf)[ptrs][cmp], ts[cmp],
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(np.asarray(out.weight)[ptrs][cmp], ws[cmp],
+                               atol=1e-5, rtol=0)

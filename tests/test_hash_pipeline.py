@@ -96,7 +96,7 @@ _PYR_ICP = dataclasses.replace(
 
 
 def test_fast_motion_tracks():
-    """2x the moderate test's amplitude (VERDICT r1 item 8) at unchanged
+    """2x the moderate test's amplitude at unchanged
     per-level iteration caps, with the flagship pyramid schedule."""
     num_frames = 16
     cfg = dataclasses.replace(CFG, icp=_PYR_ICP)

@@ -1,6 +1,7 @@
 """I/O tests: PNG16 codec (pure-Python and native C++ agree), TUM dataset
 round trip through export -> association -> batch decode."""
 
+import os
 
 import numpy as np
 import pytest
@@ -106,7 +107,7 @@ def test_tum_association_tolerance(tmp_path):
     assert pairs[1][3] == ["p2"]
 
 
-# --- real-world robustness (VERDICT r2 item 8) -----------------------------
+# --- real-world robustness -----------------------------
 
 def test_truncated_png_raises(tmp_path):
     """A truncated file must raise cleanly (both codecs), not scramble."""
@@ -169,3 +170,28 @@ def test_sequence_without_groundtruth(tmp_path):
     loaded, gt = seq.load_all(cam.width, cam.height)
     assert len(loaded) == 3 and all(p is None for p in gt)
     np.testing.assert_array_equal(np.asarray(loaded[0]), depths[0])
+
+
+def test_native_codec_builds_from_source(tmp_path, monkeypatch):
+    """The library is not committed: make builds it from depthio.cpp,
+    and the fresh build round-trips against the pure-Python codec."""
+    import shutil
+
+    src = tmp_path / "native"
+    src.mkdir()
+    for name in ("Makefile", "depthio.cpp"):
+        shutil.copy(os.path.join(depth_io._NATIVE_DIR, name), src)
+    monkeypatch.setattr(depth_io, "_NATIVE_DIR", str(src))
+    monkeypatch.setattr(depth_io, "_LIB_PATH", str(src / "libdepthio.so"))
+    monkeypatch.setattr(depth_io, "_lib", None)
+    monkeypatch.setattr(depth_io, "_lib_tried", False)
+    assert depth_io._load_native() is not None
+    assert (src / "libdepthio.so").exists()
+    img = random_depth(h=480, w=640, seed=5)
+    a, b = str(tmp_path / "a.png"), str(tmp_path / "b.png")
+    depth_io.write_depth_png(a, img, native=True)
+    depth_io.write_depth_png(b, img, native=False)
+    np.testing.assert_array_equal(depth_io.read_depth_png(a, native=False),
+                                  img)
+    np.testing.assert_array_equal(depth_io.read_depth_png(b, native=True),
+                                  img)

@@ -1,4 +1,4 @@
-"""Keyframe-backend durability (VERDICT r2 item 1): checkpoint mid-sweep,
+"""Keyframe-backend durability: checkpoint mid-sweep,
 resume, and the backend keeps its full capability — loop closures against
 PRE-checkpoint keyframes still fire, map rebuilds still work, and the
 trajectory matches the uninterrupted run.

@@ -6,8 +6,8 @@ gates — optical-axis angle + solution OBSERVABILITY (smallest eigenvalue
 of the forward solve's normal matrix) — reject both.  The r2 mutual
 (forward/reverse) check remains as an optional stricter mode; it was
 demoted after measurement showed it rejecting true closures whose
-REVERSE overlap is degenerate (reverse ICP slid 0.13-0.57 m with zero
-rotation at flagship scale — BENCH_NOTES r3)."""
+REVERSE overlap is degenerate (the reverse ICP slid decimetres with no
+rotation at flagship scale)."""
 
 import dataclasses
 

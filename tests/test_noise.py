@@ -102,8 +102,7 @@ def test_noisy_room_sweep_robust_frontend():
     """Flagship robust frontend on the Kinect-noise room sweep (the
     growing-map workload): tracks within an ATE bound AND keeps block
     allocation at clean-data levels (without flying-pixel rejection the
-    outliers allocate garbage blocks all over the view frustum — measured
-    3x block usage at 640x480 on TPU)."""
+    outliers allocate garbage blocks all over the view frustum)."""
     n = 20
     depths, gt = synthetic.make_room_sweep(CAM, n, sweep_deg=70.0,
                                            noise_seed=3)
@@ -122,8 +121,7 @@ def test_noisy_room_sweep_robust_frontend():
     ate_plain, used_plain = run(_sweep_cfg(False), depths)
 
     # measured at this scale (quarter-res, 4 cm voxels): clean 42 mm,
-    # robust 50 mm, plain 118 mm / 2.6x blocks.  The full-res flagship run
-    # tracks the same workload at 18 mm (robust) vs 23 mm (plain) on TPU.
+    # robust 50 mm, plain 118 mm / 2.6x blocks.
     assert ate_clean < 0.06, f"clean sweep ATE {ate_clean}"
     assert ate_robust < 1.5 * ate_clean, (ate_robust, ate_clean)
     assert ate_plain > 1.8 * ate_robust, (ate_plain, ate_robust)

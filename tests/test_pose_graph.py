@@ -182,8 +182,8 @@ def test_block_sparse_build_matches_dense_jacfwd():
 def test_cg_step_matches_dense_solve():
     """One GN step via matrix-free block-Jacobi CG must reproduce the
     dense Cholesky step (same damped, anchored system) — including with
-    IRLS robust weights.  VERDICT r4 item 7: the scale-proof solver must
-    hit equal convergence, not just 'converge'."""
+    IRLS robust weights: the scale-proof solver must hit equal
+    convergence, not just 'converge'."""
     import jax
 
     graph = _random_graph(K=9, E=16, cap_K=16, cap_E=24)
@@ -265,9 +265,9 @@ def test_auto_solver_switches_at_capacity():
 
 
 def test_optimize_at_k256_capacity():
-    """BA at large padded capacity (VERDICT r3 item 3: the O(E*K) build
-    forced the bench to right-size capacity to 32 poses; the block-sparse
-    build must make K=256 routine).  64 real poses in a 256-capacity
+    """BA at large padded capacity (an O(E*K) build would force callers
+    to right-size capacity; the block-sparse build must make K=256
+    routine).  64 real poses in a 256-capacity
     graph: drift corrected, pads untouched."""
     K, cap = 64, 256
     gt = _ring_poses(K)

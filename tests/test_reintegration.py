@@ -1,4 +1,4 @@
-"""De-integration and incremental BA reintegration (VERDICT r2 item 6).
+"""De-integration and incremental BA reintegration.
 
 The Curless-Levoy weighted average is exactly invertible below the weight
 cap: regenerating a fused frame's samples (same depth + pose) and applying

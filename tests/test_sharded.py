@@ -2,6 +2,8 @@
 must reproduce the single-chip pipeline (same allocations, matching
 trajectory) while actually partitioning the map."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ from voxelhashing_demo_tpu.config import (
     FusionConfig,
     GCConfig,
     HashConfig,
+    ICPConfig,
     PipelineConfig,
     RaycastConfig,
 )
@@ -53,13 +56,24 @@ def test_sharded_state_is_partitioned(mesh):
     np.testing.assert_allclose(state.pose, np.eye(4))
 
 
-def test_sharded_matches_single_chip(mesh):
+# the flagship's tracker: a 3-level pyramid whose finest level MEAN-pools
+# the source 2x (ops/icp.icp_align_pyramid); the sharded twin must pool
+# the same way or it tracks a different solution from the first frame
+PYRAMID_CFG = dataclasses.replace(
+    CFG, icp=ICPConfig(pyramid=(4, 2, 1), pyramid_iters=(8, 4, 2),
+                       source_pools=(1, 1, 2), huber_delta=0.01),
+)
+
+
+@pytest.mark.parametrize("cfg", [CFG, PYRAMID_CFG],
+                         ids=["single_level", "pyramid_pooled"])
+def test_sharded_matches_single_chip(mesh, cfg):
     num_frames = 6
-    depths, gt = synthetic.make_sequence(CFG.camera, num_frames,
+    depths, gt = synthetic.make_sequence(cfg.camera, num_frames,
                                          trans_amp=0.04, rot_amp_deg=2.0)
 
-    single = hash_slam.HashSLAM(CFG)
-    multi = sharded.ShardedHashSLAM(CFG, mesh)
+    single = hash_slam.HashSLAM(cfg)
+    multi = sharded.ShardedHashSLAM(cfg, mesh)
     for d in depths:
         single.process(d)
         multi.process(d)
@@ -232,8 +246,7 @@ def test_sharded_chunked_fusion_and_splat(mesh):
 def test_sharded_incremental_reintegration(mesh):
     """A BA correction on the SHARDED backend takes the incremental path
     (owner-local make_sharded_reintegrate) and the moved map matches a
-    from-scratch sharded rebuild at the corrected poses (VERDICT r3
-    item 5)."""
+    from-scratch sharded rebuild at the corrected poses."""
     import dataclasses
 
     from voxelhashing_demo_tpu.geometry import se3

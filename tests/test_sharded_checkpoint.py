@@ -1,4 +1,4 @@
-"""Sharded checkpoint/resume (VERDICT r1 item 6).
+"""Sharded checkpoint/resume.
 
 Save a mid-sequence sharded run, restore onto a fresh mesh, continue: the
 trajectory must be bit-identical to the uninterrupted run.  Also: the
@@ -109,7 +109,7 @@ def test_sharded_checkpoint_single_chip_view(tmp_path):
 def test_sharded_keyframe_checkpoint_roundtrip(tmp_path):
     """The keyframe backend checkpoints/resumes on a mesh too: inner
     sharded state restores bit-identically and the backend records
-    (keyframes, refs, graph) survive (VERDICT r2 item 1)."""
+    (keyframes, refs, graph) survive."""
     import dataclasses
 
     from voxelhashing_demo_tpu.models import keyframe_slam

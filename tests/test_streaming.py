@@ -190,7 +190,7 @@ def test_streaming_composes_with_keyframe_backend():
             base.keyframes, min_rotation_deg=8.0, min_translation=0.10,
             # deliberately undersized: the multi-room sweep must GROW the
             # graph past this instead of silently degrading to odometry
-            # (VERDICT r2 item 2's done criterion)
+            #
             max_keyframes=4, max_edges=8,
         ),
     )
@@ -260,7 +260,7 @@ def test_packed_restore_roundtrip(tiny_cfg):
     restores bit-exactly through the bucketed jit (key int32 bits survive
     the float32 view on both ends — including the EMPTY_KEY padding
     sentinel 0x7FFFFFFF, which is a NaN bit pattern: the host->device
-    transfer must not canonicalize it, r3 ADVICE item 2)."""
+    transfer must not canonicalize it)."""
     import dataclasses
 
     from voxelhashing_demo_tpu.models import hash_slam as hs
@@ -351,7 +351,7 @@ def test_born_survives_evict_restore_for_exact_defuse(tiny_cfg):
     """The streaming-exactness foundation: a frame fused at t=0, whose
     rows were evicted and restored later, must still de-integrate
     EXACTLY (the born gate needs the ORIGINAL allocation stamps, which
-    evict/restore now preserve — VERDICT r3 item 5)."""
+    evict/restore preserve)."""
     from voxelhashing_demo_tpu.ops import preprocess as pre_ops
 
     cfg = tiny_cfg
@@ -464,7 +464,7 @@ def test_streaming_incremental_reintegration():
     """A BA correction on a STREAMING map takes the incremental path:
     moved frames restore their frustums from the host store first (with
     preserved born stamps), then de/re-integrate — and the result matches
-    a from-scratch map fused at the corrected poses (VERDICT r3 item 5)."""
+    a from-scratch map fused at the corrected poses."""
     import dataclasses
 
     from voxelhashing_demo_tpu.geometry import se3

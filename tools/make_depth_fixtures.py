@@ -43,7 +43,7 @@ N_FRAMES = 8
 # realistic handheld pan (TUM fr1 averages ~1-2 deg/frame)
 SWEEP_DEG = 14.0
 
-# second committed sequence (VERDICT r4 item 5): a CLOSED 360-degree
+# second committed sequence: a CLOSED 360-degree
 # loop at quarter resolution, so the keyframe backend's gates
 # (observability, robust kernels, BA, map rebuild) are exercised on the
 # disk-file path too.  Quarter res keeps the committed size ~1 MB while

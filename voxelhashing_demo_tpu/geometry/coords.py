@@ -134,5 +134,5 @@ def unpack_block_key(key: jnp.ndarray, key_bits: int = 10) -> jnp.ndarray:
 
 
 # host-side scalar, NOT a jnp array: a module-level device array would be
-# embedded as an on-device constant and stall lowering on remote backends
+# embedded as an on-device constant in every program that closes over it
 EMPTY_KEY = np.int32(0x7FFFFFFF)

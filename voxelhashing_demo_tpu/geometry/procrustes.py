@@ -16,6 +16,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ..config import CameraConfig, ICPConfig
+from .se3 import matmul
 
 
 def procrustes(
@@ -44,14 +45,14 @@ def procrustes(
 
     mu_s = jnp.sum(src * wn[:, None], axis=0)
     mu_t = jnp.sum(tgt * wn[:, None], axis=0)
-    C = (tgt - mu_t).T @ ((src - mu_s) * wn[:, None])   # (3, 3)
+    C = matmul((tgt - mu_t).T, (src - mu_s) * wn[:, None])   # (3, 3)
 
     U, _, Vt = jnp.linalg.svd(C)
-    d = jnp.linalg.det(U @ Vt)
+    d = jnp.linalg.det(matmul(U, Vt))
     D = jnp.diag(jnp.array([1.0, 1.0, 0.0], jnp.float32)
                  + jnp.array([0.0, 0.0, 1.0], jnp.float32) * d)
-    R = U @ D @ Vt
-    t = mu_t - R @ mu_s
+    R = matmul(matmul(U, D), Vt)
+    t = mu_t - matmul(R, mu_s)
 
     T = jnp.eye(4, dtype=jnp.float32)
     T = T.at[:3, :3].set(R).at[:3, 3].set(t)
@@ -100,7 +101,7 @@ def procrustes_init(
             p.reshape(-1, 3), p_t.reshape(-1, 3),
             valid.reshape(-1).astype(jnp.float32),
         )
-        T = delta @ T
+        T = matmul(delta, T)
     return T
 
 

@@ -2,7 +2,7 @@
 
 The reference uses Eigen's generic dense matrix exponential/logarithm
 (reference: SE3.cpp:4-26, ``unsupported/Eigen/MatrixFunctions``) on the host.
-On TPU we need branch-free, jit-friendly closed forms: Rodrigues for exp,
+Under jit we need branch-free closed forms: Rodrigues for exp,
 and the standard SO(3)/SE(3) log with Taylor guards near theta = 0 so the
 whole tracker differentiates and vectorizes.
 
@@ -13,9 +13,27 @@ three columns multiply the translation (reference: Solver.cu:26-37).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 _EPS = 1e-8
+
+# Every float32 contraction in the package runs at HIGHEST precision: a
+# GPU may otherwise run a float32 dot in TF32 (~3 decimal digits), which
+# puts millimetres of error on a 3 m world coordinate — against 2 cm
+# voxels and a 1 cm Huber band.  The contractions are at most 6 wide, so
+# full precision adds little work.
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """``a @ b`` at full float32 precision."""
+    return jnp.matmul(a, b, precision=HIGHEST)
+
+
+def einsum(spec: str, *operands: jnp.ndarray) -> jnp.ndarray:
+    """``jnp.einsum`` at full float32 precision."""
+    return jnp.einsum(spec, *operands, precision=HIGHEST)
 
 
 def hat(w: jnp.ndarray) -> jnp.ndarray:
@@ -69,12 +87,12 @@ def exp(xi: jnp.ndarray) -> jnp.ndarray:
     v, w = xi[..., :3], xi[..., 3:]
     theta2 = jnp.sum(w * w, axis=-1)[..., None, None]
     K = hat(w)
-    K2 = K @ K
+    K2 = matmul(K, K)
     I = jnp.eye(3, dtype=xi.dtype)
     A, B, C = _sinc_factors(theta2)
     R = I + A * K + B * K2
     V = I + B * K + C * K2
-    t = jnp.einsum("...ij,...j->...i", V, v)
+    t = einsum("...ij,...j->...i", V, v)
     top = jnp.concatenate([R, t[..., :, None]], axis=-1)
     bottom = jnp.broadcast_to(
         jnp.array([0.0, 0.0, 0.0, 1.0], dtype=xi.dtype),
@@ -106,7 +124,7 @@ def log(T: jnp.ndarray) -> jnp.ndarray:
     # w = theta / sin(theta) * w_sin; the ratio -> 1 smoothly at theta = 0
     w = (theta / s)[..., None] * w_sin
     K = hat(w)
-    K2 = K @ K
+    K2 = matmul(K, K)
     I = jnp.eye(3, dtype=T.dtype)
     A, B, _ = _sinc_factors(theta2)
     # V^{-1} = I - K/2 + (1/theta^2)(1 - A/(2B)) K^2; the exact form
@@ -117,7 +135,7 @@ def log(T: jnp.ndarray) -> jnp.ndarray:
         (1.0 - A / (2.0 * B)) / jnp.maximum(theta2, _EPS),
     )
     V_inv = I - 0.5 * K + coef * K2
-    v = jnp.einsum("...ij,...j->...i", V_inv, t)
+    v = einsum("...ij,...j->...i", V_inv, t)
     return jnp.concatenate([v, w], axis=-1)
 
 
@@ -126,7 +144,7 @@ def inverse(T: jnp.ndarray) -> jnp.ndarray:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     Rt = jnp.swapaxes(R, -1, -2)
-    ti = -jnp.einsum("...ij,...j->...i", Rt, t)
+    ti = -einsum("...ij,...j->...i", Rt, t)
     top = jnp.concatenate([Rt, ti[..., :, None]], axis=-1)
     bottom = jnp.broadcast_to(
         jnp.array([0.0, 0.0, 0.0, 1.0], dtype=T.dtype),
@@ -137,7 +155,7 @@ def inverse(T: jnp.ndarray) -> jnp.ndarray:
 
 def compose(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
     """Group composition A @ B (reference: SE3.cpp:24-26 updateTransform)."""
-    return A @ B
+    return matmul(A, B)
 
 
 def apply(T: jnp.ndarray, points: jnp.ndarray) -> jnp.ndarray:
@@ -147,12 +165,12 @@ def apply(T: jnp.ndarray, points: jnp.ndarray) -> jnp.ndarray:
     """
     R = T[:3, :3]
     t = T[:3, 3]
-    return points @ R.T + t
+    return matmul(points, R.T) + t
 
 
 def apply_rotation(T: jnp.ndarray, vecs: jnp.ndarray) -> jnp.ndarray:
     """Rotate (..., 3) vectors by a single (4, 4) transform — for normals."""
-    return vecs @ T[:3, :3].T
+    return matmul(vecs, T[:3, :3].T)
 
 
 def identity(dtype=jnp.float32) -> jnp.ndarray:

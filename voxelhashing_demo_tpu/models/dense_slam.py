@@ -85,7 +85,7 @@ def step(
         & icp_ops.motion_plausible(result.transform, config.icp)
     )
     T_rel = jnp.where(ok, result.transform, se3.identity())
-    pose_new = state.pose @ T_rel
+    pose_new = se3.compose(state.pose, T_rel)
 
     # --- fuse -------------------------------------------------------------
     tsdf_new = tsdf_ops.integrate_dense(

@@ -2,10 +2,10 @@
 //
 // The reference vendors stb_image/stb_image_write (7.5k/1.6k LoC of C) and
 // loads depth with stbi_load_16 (reference: Application.cpp:28-29,
-// SDFRenderer.cpp:146-147).  This is the TPU framework's native equivalent:
+// SDFRenderer.cpp:146-147).  This is the framework's native equivalent:
 // a small, dependency-light (zlib only) PNG16 codec with a C ABI consumed
 // from Python via ctypes (utils/io.py), plus a multi-threaded batch decoder
-// for dataset streaming — the host-side data loader that keeps the TPU fed.
+// for dataset streaming — the host-side data loader that keeps the device fed.
 //
 // Supports the TUM RGB-D depth format: 8/16-bit grayscale, non-interlaced,
 // all five PNG scanline filters.

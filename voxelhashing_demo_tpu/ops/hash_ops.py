@@ -1,6 +1,6 @@
 """Voxel block hash table as pure, deterministic batched array ops.
 
-TPU-native redesign of the reference's GPU hash table
+Atomic-free redesign of the reference's GPU hash table
 (reference: VoxelUtils.cu — the component SURVEY.md section 2a inventories).
 The reference is built on atomics: per-bucket spinlocks for insert
 (atomicExch mutex, VoxelUtils.cu:444-445), an atomic free-list heap
@@ -29,8 +29,8 @@ Data layout (structure-of-arrays, static shapes):
 - invariant: the occupied slots of each bucket are a *prefix* of the bucket
   (maintained by insert and GC re-compaction), so insertion is
   ``fill + rank`` with no probing for gaps.
-- ``tsdf/weight``: [num_blocks, 512] rows, one 8^3 block per row — the last
-  dim 512 = 4 x 128 lanes, ideal for the VPU.
+- ``tsdf/weight``: [num_blocks, 512] rows, one 8^3 block per row, so a
+  block's voxels are one contiguous row gather.
 - ``free_list``: stack of free block rows; ``free_top`` replaces the
   atomic heapCounter.
 """
@@ -434,21 +434,7 @@ def _integrate_rows(
     u = jnp.clip(ij[..., 0], 0, cam.width - 1)
     v = jnp.clip(ij[..., 1], 0, cam.height - 1)
     row_valid = ptrs != FREE_PTR
-    if cfg.use_pallas_gather and C % 8 == 0:
-        # VMEM-window gather (ops/pallas_gather.py): the image stays in
-        # VMEM instead of paying HBM latency per voxel; voxels outside
-        # their block's window (near-range only) come back uncovered and
-        # are skipped while out of window — permanent integration holes
-        # if a block stays closer than ~0.4 m for the whole sequence
-        from . import pallas_gather
-
-        depth, covered = pallas_gather.gather_depth_window(
-            depth_m, v, u, in_img & row_valid[:, None],
-            interpret=jax.default_backend() == "cpu",
-        )
-        in_img = covered
-    else:
-        depth = depth_m[v, u]                              # (C, V)
+    depth = depth_m[v, u]                                  # (C, V) gather
 
     z = pc[..., 2]
     sdf = depth - z
@@ -743,7 +729,7 @@ def restore_blocks(
     the born gate — the caller must then fall back to a full rebuild
     (models/keyframe_slam surfaces this as a ledger invalidation).
 
-    RESIDENCY CAVEAT (bounded approximation, r4 ADVICE item 1): the born
+    RESIDENCY CAVEAT (bounded approximation): the born
     stamp records the row's allocation EPOCH, not its device-residency
     history.  A frame whose frustum covered this block while it was
     off-device (evicted, and a fresh allocation skipped — e.g.

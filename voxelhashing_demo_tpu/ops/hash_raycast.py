@@ -5,7 +5,7 @@ rasterizing visible-block cubes into front/back depth textures and DDA-ing
 between them per fragment (reference: notes.md:3-16, raycastSDF.frag:121-177)
 — and never worked (README.md:4-5).
 
-The TPU-native design here goes through a **view-local dense cache**: each
+The design here goes through a **view-local dense cache**: each
 frame, the visible blocks (the same compacted set fusion uses) are scattered
 into a camera-centered dense grid in HBM — the moral equivalent of the
 reference's GL "SDF volume" buffer (SDFRenderer.cpp:59-61) that fusion wrote

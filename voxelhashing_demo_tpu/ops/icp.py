@@ -1,6 +1,6 @@
 """Point-to-plane ICP camera tracking solved by Gauss-Newton, fully on-device.
 
-TPU-native redesign of the reference's tracking stack:
+Redesign of the reference's tracking stack as one jitted program:
 
 - Projective data association + point-to-plane residual
   (reference: FindCorrespondences, CameraTrackingUtils.cu:131-185) becomes a
@@ -118,8 +118,9 @@ def oct_decode_bits(bits_f32: jnp.ndarray) -> jnp.ndarray:
 def pack_target(tgt: Frame) -> jnp.ndarray:
     """Pack an association target into (H, W, 2) float32: [depth, normal].
 
-    Association is gather-bound (~10 ns per random HBM element): packing
-    [vertices, normals] costs 24 bytes/pixel per GN iteration.  The target
+    Association is gather-bound (one random device-memory read per
+    pixel): packing [vertices, normals] costs 24 bytes/pixel per GN
+    iteration.  The target
     vertex is ray(u, v) * depth with ray a pure function of the gathered
     pixel coords (exactly how preprocess built it), and the normal fits in
     one float32 of octahedral bf16 bits — so 8 bytes/pixel carries the
@@ -156,8 +157,8 @@ def associate(
     ij, in_image = cam_geom.project_nearest(p, cam)
 
     # clamp for the gather; validity handled by mask.  The gather is THE
-    # cost of association (random HBM access, ~10 ns/element), so the
-    # target is packed to 8 bytes/pixel (see pack_target).
+    # cost of association (random device-memory access), so the target
+    # is packed to 8 bytes/pixel (see pack_target).
     u = jnp.clip(ij[..., 0], 0, cam.width - 1)
     v = jnp.clip(ij[..., 1], 0, cam.height - 1)
     if tgt_packed is None:
@@ -203,8 +204,8 @@ def build_normal_system(
     """Form JTJ / JTr directly from the association maps.
 
     J row for pixel i: [n_i, (p_i x n_i)] (translation block first,
-    reference: Solver.cu:30-35).  Contractions run on the MXU as
-    (6 x N) @ (N x 6) matmuls.
+    reference: Solver.cu:30-35).  Contractions are (6 x N) @ (N x 6)
+    matmuls at HIGHEST precision (geometry/se3.matmul).
 
     With ``huber_delta`` > 0 the system is IRLS-weighted by the Huber
     kernel (w = min(1, delta/|r|)) — outlier correspondences (dynamic
@@ -223,8 +224,8 @@ def build_normal_system(
     J = (J * w_sqrt[..., None]).reshape(-1, 6)
     rw = (r * w_sqrt).reshape(-1)
 
-    JTJ = J.T @ J                                       # (6, 6) on MXU
-    JTr = J.T @ rw
+    JTJ = se3.matmul(J.T, J)                            # (6, 6)
+    JTr = se3.matmul(J.T, rw)
     error = jnp.sum(rw * rw)
     count = jnp.sum(valid.astype(jnp.float32))
     return NormalSystem(JTJ=JTJ, JTr=JTr, error=error, count=count)
@@ -272,7 +273,7 @@ def icp_align(
         p, n_t, r, valid = associate(T, src, tgt, cam, cfg, tgt_packed)
         sys = build_normal_system(p, n_t, r, valid, cfg.huber_delta)
         delta = solve_normal_system(sys, cfg.damping)
-        T_new = se3.exp(delta) @ T
+        T_new = se3.compose(se3.exp(delta), T)
         return T_new, sys, jnp.sum(delta * delta)
 
     def cond(state):

@@ -6,7 +6,7 @@ with unbounded drift — no keyframes, no loop closure, no global optimization
 whole tracking stack).  This module is the north-star component that bounds
 drift over long sequences (BASELINE.json config 3).
 
-Design (TPU-first):
+Design (static shapes, one jit):
 - The graph is a static-shape pytree: padded pose array [K, 4, 4] and padded
   edge arrays (indices, SE3 measurements, scalar weights).  Padding edges are
   (0, 0, identity, weight 0) so their residuals are exactly zero.
@@ -17,7 +17,7 @@ Design (TPU-first):
   scatter-added into the block-sparse normal matrix — O(E) build cost,
   independent of the graph capacity K.  Two inner solvers share that
   build (``KeyframeConfig.ba_solver``): a dense 6K x 6K Cholesky
-  (exact; K=256 -> 1536^2, trivial for the MXU) while K is small, and
+  (exact; K=256 -> 1536^2, a small dense factorization) while K is small, and
   matrix-free block-Jacobi-preconditioned CG (``solve_delta_cg``) —
   O(E) per iteration, H never materialized — once the graph outgrows
   it; "auto" switches at the static capacity, so long runs get the
@@ -145,8 +145,8 @@ def edge_residuals(
     """se(3) residuals r_e = log(Z_e^-1 · T_i^-1 · T_j)  ->  (E, 6)."""
     Ti = poses[edges_ij[:, 0]]
     Tj = poses[edges_ij[:, 1]]
-    pred = se3.inverse(Ti) @ Tj
-    return se3.log(se3.inverse(edges_T) @ pred)
+    pred = se3.compose(se3.inverse(Ti), Tj)
+    return se3.log(se3.compose(se3.inverse(edges_T), pred))
 
 
 def robust_edge_weights(
@@ -213,8 +213,7 @@ def build_normal_equations(
     over edges) and scattered into H as four 6x6 blocks.  The previous
     implementation differentiated the full residual stack against all
     K*6 twists at once, materializing an (E, 6, K, 6) Jacobian whose
-    cost scaled O(E*K) and made BA capacity-sensitive (VERDICT r3 weak
-    5: the bench had to right-size capacity to keep BA affordable).
+    cost scaled O(E*K) and made BA capacity-sensitive.
     This is the per-edge half of the reference-lineage fused reduction
     (reference: LinearSystem.cu:25-90 accumulates per-correspondence
     blocks the same way).
@@ -260,12 +259,14 @@ def _edge_blocks(
     Tj = graph.poses[j_idx]
 
     def edge_r(Ti_e, Tj_e, Z_e):
-        return se3.log(se3.inverse(Z_e) @ se3.inverse(Ti_e) @ Tj_e)
+        return se3.log(se3.compose(
+            se3.compose(se3.inverse(Z_e), se3.inverse(Ti_e)), Tj_e))
 
     def edge_jac(Ti_e, Tj_e, Z_e):
         def r_of(xi):                                     # xi: (12,)
             return edge_r(
-                Ti_e @ se3.exp(xi[:6]), Tj_e @ se3.exp(xi[6:]), Z_e
+                se3.compose(Ti_e, se3.exp(xi[:6])),
+                se3.compose(Tj_e, se3.exp(xi[6:])), Z_e
             )
 
         return jax.jacfwd(r_of)(jnp.zeros((12,), dtype=jnp.float32))
@@ -276,12 +277,12 @@ def _edge_blocks(
     wJi = Ji * ew[:, None, None]
     wJj = Jj * ew[:, None, None]
 
-    Hii = jnp.einsum("eab,eac->ebc", wJi, Ji)
-    Hij = jnp.einsum("eab,eac->ebc", wJi, Jj)
-    Hjj = jnp.einsum("eab,eac->ebc", wJj, Jj)
+    Hii = se3.einsum("eab,eac->ebc", wJi, Ji)
+    Hij = se3.einsum("eab,eac->ebc", wJi, Jj)
+    Hjj = se3.einsum("eab,eac->ebc", wJj, Jj)
 
-    bi = jnp.einsum("eab,ea->eb", wJi, r)
-    bj = jnp.einsum("eab,ea->eb", wJj, r)
+    bi = se3.einsum("eab,ea->eb", wJi, r)
+    bj = se3.einsum("eab,ea->eb", wJj, r)
     bblk = jnp.zeros((K, 6), dtype=jnp.float32)
     bblk = bblk.at[i_idx].add(bi).at[j_idx].add(bj)
 
@@ -329,10 +330,10 @@ def solve_delta_cg(
 
     def matvec(x):                                        # (K, 6)
         xi, xj = x[i_idx], x[j_idx]
-        yi = (jnp.einsum("ebc,ec->eb", Hii, xi)
-              + jnp.einsum("ebc,ec->eb", Hij, xj))
-        yj = (jnp.einsum("ebc,ec->eb", HijT, xi)
-              + jnp.einsum("ebc,ec->eb", Hjj, xj))
+        yi = (se3.einsum("ebc,ec->eb", Hii, xi)
+              + se3.einsum("ebc,ec->eb", Hij, xj))
+        yj = (se3.einsum("ebc,ec->eb", HijT, xi)
+              + se3.einsum("ebc,ec->eb", Hjj, xj))
         y = jnp.zeros((K, 6), dtype=jnp.float32)
         return y.at[i_idx].add(yi).at[j_idx].add(yj) + diagv * x
 
@@ -392,7 +393,7 @@ def apply_update(
     L, low = jax.scipy.linalg.cho_factor(A, lower=True)
     delta = jax.scipy.linalg.cho_solve((L, low), -b).reshape(K, 6)
     delta = jnp.where(jnp.all(jnp.isfinite(delta)), delta, 0.0)
-    poses = jax.vmap(lambda T, xi: T @ se3.exp(xi))(graph.poses, delta)
+    poses = jax.vmap(lambda T, xi: se3.compose(T, se3.exp(xi)))(graph.poses, delta)
     return graph._replace(poses=poses)
 
 
@@ -431,7 +432,7 @@ def optimize(graph: PoseGraph, cfg: KeyframeConfig):
     if use_cg:
         def body(i, g):
             delta = solve_delta_cg(g, gnc_delta(cfg, i), cfg)
-            poses = jax.vmap(lambda T, xi: T @ se3.exp(xi))(
+            poses = jax.vmap(lambda T, xi: se3.compose(T, se3.exp(xi)))(
                 g.poses, delta
             )
             return g._replace(poses=poses)

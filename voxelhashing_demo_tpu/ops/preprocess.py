@@ -1,6 +1,6 @@
 """Depth-frame preprocessing: back-projection and normal estimation.
 
-TPU-native re-expression of the reference's two preprocessing kernels
+Re-expression of the reference's two preprocessing kernels
 (reference: CameraTrackingUtils.cu:50-113, launched by ``preProcess``
 :115-120): one fused jitted function over the whole image instead of two
 SIMT kernel launches with a host sync between them.
@@ -100,7 +100,7 @@ def reject_outliers(
     grows quadratically with z, tracking both the sensor's axial noise
     (sigma ~ z^2, Khoshelham & Elberink 2012) and the pixel footprint on
     slanted surfaces.  No reference counterpart (its frontend ingests raw
-    depth, CameraTrackingUtils.cu:50-74).  Pure shifted adds on the VPU.
+    depth, CameraTrackingUtils.cu:50-74).  Pure shifted adds.
     """
     valid = depth_m > 0
     band = band_base + band_quad * depth_m * depth_m
@@ -126,7 +126,7 @@ def bilateral_filter(
     Real sensor depth is noisy; KinectFusion-class systems prefilter before
     normal estimation.  The reference has no prefilter at all (its
     preprocess is back-project + normals only, CameraTrackingUtils.cu:50-113).
-    Pure shifted adds on the VPU; invalid (0) pixels neither contribute nor
+    Pure shifted adds; invalid (0) pixels neither contribute nor
     get filled.
     """
     acc = jnp.zeros_like(depth_m)
@@ -188,10 +188,9 @@ def downsample_depth(depth_m: jnp.ndarray, factor: int) -> jnp.ndarray:
     (common.h:28-29); here the pyramid is real.  Min-pooling (over valid
     pixels) avoids averaging across depth discontinuities.
 
-    One ``reduce_window`` with a (factor, factor) window: the earlier
-    reshape/transpose formulation lowered to stride-``factor`` row slices
-    that break the TPU's (8, 128) tiling — ~2 ms per slice on v5e
-    (tools/profile_trace.py); windowed reduction is the native pooling op.
+    One ``reduce_window`` with a (factor, factor) window: windowed
+    reduction is XLA's native pooling op, and it avoids the strided row
+    slices a reshape/transpose formulation lowers to.
     """
     if factor <= 1:
         return depth_m

@@ -5,7 +5,7 @@ OpenGL design (rasterize block cubes to front/back depth, then per-fragment
 DDA, reference: notes.md:3-16, raycastSDF.frag:121-177) whose final pass is
 commented out (SDFRenderer.cpp:215-254) and declared broken (README.md:4-5).
 
-On TPU there is no rasterizer and no need for one: the whole image of rays
+As one XLA program there is no rasterizer and no need for one: the whole image of rays
 marches in lockstep inside one jitted ``lax.fori_loop``, sampling the TSDF
 trilinearly.  Stepping is adaptive per ray (sphere tracing against the
 truncated SDF): big conservative steps through unobserved space, |sdf|-sized
@@ -26,6 +26,7 @@ import jax.numpy as jnp
 
 from ..config import CameraConfig, FusionConfig, RaycastConfig
 from ..geometry import camera as cam_geom
+from ..geometry.se3 import matmul
 from .tsdf import DenseTSDF, trilinear_sample, sdf_gradient
 
 
@@ -60,7 +61,7 @@ def raycast_rays(
     over devices and calls this on each device's row slice."""
     R = T_wc[:3, :3]
     origin = T_wc[:3, 3]
-    dirs = rays_cam @ R.T                                 # world, z-depth param
+    dirs = matmul(rays_cam, R.T)                          # world, z-depth param
     inv_len = 1.0 / jnp.linalg.norm(dirs, axis=-1)        # meters per unit t
 
     H, W = rays_cam.shape[:2]
@@ -119,7 +120,7 @@ def raycast_rays(
         g = sdf_gradient(state, pos_world)
         glen = jnp.linalg.norm(g, axis=-1, keepdims=True)
         n_world = jnp.where(glen > 1e-9, g / jnp.maximum(glen, 1e-9), 0.0)
-        n_cam = n_world @ R                               # R^T n (world->cam)
+        n_cam = matmul(n_world, R)                        # R^T n (world->cam)
         # orient toward the camera
         flip = jnp.sum(n_cam * rays_cam, axis=-1, keepdims=True) > 0
         n_cam = jnp.where(flip, -n_cam, n_cam)

@@ -3,12 +3,12 @@
 The reference's renderer design rasterizes visible-block cubes into
 front/back depth textures and then DDA-marches per fragment
 (reference: notes.md:3-16, raycastSDF.frag:121-177) — and never worked
-(README.md:4-5).  A per-step marcher is also the wrong shape for TPU: every
-sampling step is a random HBM gather pass (~10 ns/element, measured), so
-96 steps x 8 trilinear corners over 307k rays costs seconds.
+(README.md:4-5).  A per-step marcher is also costly as array code: every
+sampling step is a random gather pass over the TSDF, and 96 steps x 8
+trilinear corners over 307k rays adds up to ~236M random reads per frame.
 
 This module replaces marching with **projective splatting**, the
-rasterization idea taken to its TPU-native conclusion:
+rasterization idea expressed as array operations:
 
 1. gather the visible blocks' TSDF rows (contiguous row gather — fast);
 2. for every voxel in the surface band (weight > 0, |sdf| < band), project
@@ -17,17 +17,16 @@ rasterization idea taken to its TPU-native conclusion:
    ops/tsdf.py), so the surface under the voxel sits at  z_surf = z + sdf —
    sub-voxel accuracy from a single value, no interpolation;
 3. ``scatter-min`` the estimates into the depth buffer (one deterministic
-   scatter pass — the TPU analog of depth-test rasterization);
+   scatter pass — the array analog of depth-test rasterization);
 4. close residual pinholes with a valid-aware 3x3 min fill + one
-   edge-preserving smoothing pass (pure VPU image ops);
+   edge-preserving smoothing pass (elementwise image ops);
 5. normals by central differences on the vertex map, exactly like the
    depth frontend (ops/preprocess.py), so model normals and frame normals
    share one convention for ICP.
 
-Cost: one row gather + one scatter pass + elementwise — ~25 ms at
-640x480 with 4k visible blocks, vs ~8 s for the trilinear marcher.
-The dense marcher (ops/raycast.py) remains the high-quality offline
-renderer and the semantics reference in tests.
+Cost: one row gather + one scatter pass + elementwise work, with no
+per-step random gather.  The dense marcher (ops/raycast.py) remains the
+high-quality offline renderer and the semantics reference in tests.
 """
 
 from __future__ import annotations
@@ -68,7 +67,7 @@ def _edge_preserving_smooth(
 ) -> jnp.ndarray:
     """One 3x3 averaging pass over valid neighbors within ``sigma_z`` of the
     center depth — knocks down splat quantization noise without blurring
-    across depth discontinuities.  Pure shifted adds (VPU)."""
+    across depth discontinuities.  Pure shifted adds."""
     acc = jnp.zeros_like(depth)
     cnt = jnp.zeros_like(depth)
     for dy in (-1, 0, 1):
@@ -184,8 +183,7 @@ def splat_depth_from_map(
     return jnp.where(jnp.isfinite(depth), depth, 0.0)
 
 
-def _splat_rows_into(
-    zbuf: jnp.ndarray,        # (H*W + 1,) running min buffer (+inf init)
+def splat_samples(
     blocks: jnp.ndarray,
     sdf_rows: jnp.ndarray,
     w_rows: jnp.ndarray,
@@ -195,12 +193,13 @@ def _splat_rows_into(
     cam: CameraConfig,
     rc: RaycastConfig,
     fusion: FusionConfig,
-) -> jnp.ndarray:
+):
+    """Per-voxel z-buffer samples of a chunk of rows: flat pixel index
+    (H*W = dropped) and surface depth (+inf = dropped), both (A*V,)."""
     local = _local_offsets(cfg.block_size)                      # (V, 3)
     vox = coords.block2voxel(blocks, cfg.block_size)[:, None, :] + local
     world = coords.voxel2world(vox, fusion.voxel_size)          # (A, V, 3)
-    T_cw = se3.inverse(T_wc)
-    pc = world @ T_cw[:3, :3].T + T_cw[:3, 3]                   # (A, V, 3)
+    pc = se3.apply(se3.inverse(T_wc), world)                    # (A, V, 3)
 
     z = pc[..., 2]
     band = rc.splat_band * fusion.voxel_size
@@ -220,10 +219,33 @@ def _splat_rows_into(
     ok = surf & in_img & (z_surf > rc.near) & (z_surf < rc.far)
     flat = ij[..., 1] * cam.width + ij[..., 0]
     flat = jnp.where(ok, flat, cam.height * cam.width)          # OOB -> drop
+    return flat.reshape(-1), jnp.where(ok, z_surf, jnp.inf).reshape(-1)
 
-    return zbuf.at[flat.reshape(-1)].min(
-        jnp.where(ok, z_surf, jnp.inf).reshape(-1), mode="drop"
-    )
+
+def zbuffer_min(
+    zbuf: jnp.ndarray, flat: jnp.ndarray, z: jnp.ndarray
+) -> jnp.ndarray:
+    """Depth test: scatter-min of samples into the (H*W + 1,) buffer.
+    Min is order-independent, so the result is exact whatever order the
+    device applies the updates in."""
+    return zbuf.at[flat].min(z, mode="drop")
+
+
+def _splat_rows_into(
+    zbuf: jnp.ndarray,        # (H*W + 1,) running min buffer (+inf init)
+    blocks: jnp.ndarray,
+    sdf_rows: jnp.ndarray,
+    w_rows: jnp.ndarray,
+    row_valid: jnp.ndarray,
+    cfg: HashConfig,
+    T_wc: jnp.ndarray,
+    cam: CameraConfig,
+    rc: RaycastConfig,
+    fusion: FusionConfig,
+) -> jnp.ndarray:
+    flat, z = splat_samples(blocks, sdf_rows, w_rows, row_valid, cfg, T_wc,
+                            cam, rc, fusion)
+    return zbuffer_min(zbuf, flat, z)
 
 
 def finalize_depth(
@@ -258,8 +280,8 @@ def surface_filter(
 
     Bit-exact for splatting: a filtered-out block has no voxel satisfying
     ``weight > 0 & |sdf| < band``, so it contributes zero scatter updates
-    either way — the filter only removes their (masked but still paid,
-    ~12 ns/update) scatter traffic and row gathers."""
+    either way — the filter only removes their (masked but still paid)
+    scatter traffic and row gathers."""
     A = active.ptrs.shape[0]
     safe = jnp.clip(active.ptrs, 0, hmap.band_min.shape[0] - 1)
     live = (active.ptrs != FREE_PTR) & (hmap.band_min[safe] < band)

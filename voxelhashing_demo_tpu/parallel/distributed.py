@@ -1,14 +1,14 @@
 """Multi-process (multi-host) runtime support for the sharded stack.
 
 The reference is strictly single-GPU (SURVEY.md §2b); BASELINE configs
-4-5 name 2-host TPU slices.  JAX's multi-host model is SPMD at the HOST
+4-5 name two-host deployments.  JAX's multi-host model is SPMD at the HOST
 level too: every process runs the same program, sees the same global
 ``jax.devices()`` list, and must participate in every computation over a
 global mesh.  This module packages the three things the host wrappers
-need to be process-safe (VERDICT r4 item 3):
+need to be process-safe:
 
 - ``initialize()``: ``jax.distributed.initialize`` passthrough
-  (idempotent, env-var driven on TPU pods / explicit elsewhere).
+  (idempotent; one process per GPU, coordinator given explicitly).
 - ``global_mesh(n)``: a 1-D mesh over the GLOBAL device list — the
   multi-host twin of ``sharded.make_mesh`` (which it now backs).
 - ``fetch(arr)`` / ``local_rows(arr)``: process-safe reads.  A
@@ -44,10 +44,10 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize multi-process JAX (idempotent).
 
-    On TPU pods with the standard environment variables a bare
-    ``initialize()`` autodetects everything; elsewhere pass the
-    coordinator explicitly.  Call BEFORE any other jax API touches the
-    backend.
+    Pass ``coordinator_address`` (``host:port`` of process 0),
+    ``num_processes`` and ``process_id`` explicitly: nothing on a GPU
+    host tells JAX its cluster.  Run one process per GPU; collectives
+    go over NCCL.  Call BEFORE any other jax API touches the backend.
 
     The idempotency guard must NOT touch the backend: an earlier version
     checked ``jax.process_count()``, which itself initializes the XLA
@@ -70,7 +70,7 @@ def initialize(coordinator_address: str | None = None,
     except Exception as e:  # single-process run without a coordinator
         if kwargs:
             raise
-        # bare initialize() on a non-pod single process is a no-op case
+        # a bare initialize() with no cluster to join is a no-op
         del e
 
 

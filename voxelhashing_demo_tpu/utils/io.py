@@ -30,19 +30,20 @@ _lib_tried = False
 
 
 def _load_native() -> Optional[ctypes.CDLL]:
-    """Load (building if needed) the native codec; None if unavailable."""
+    """Load the native codec, built from native/depthio.cpp; None if it
+    cannot be built.  The library is never committed: make rebuilds it
+    whenever the source is newer, and is a no-op otherwise."""
     global _lib, _lib_tried
     if _lib is not None or _lib_tried:
         return _lib
     _lib_tried = True
     try:
-        if not os.path.exists(_LIB_PATH):
-            subprocess.run(
-                ["make", "-s", "-C", _NATIVE_DIR],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
+        subprocess.run(
+            ["make", "-s", "-C", _NATIVE_DIR],
+            check=True,
+            capture_output=True,
+            timeout=120,
+        )
         lib = ctypes.CDLL(_LIB_PATH)
         lib.png16_info.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t,

@@ -2,7 +2,7 @@
 
 The reference loads its two frames synchronously in the constructor
 (Application.cpp:28-29).  At sequence scale, decode and host->device
-transfer must overlap TPU compute or they serialize into the frame time.
+transfer must overlap device compute or they serialize into the frame time.
 This pipeline runs a producer thread that (a) decodes depth PNGs in batches
 through the native multi-threaded codec (utils/io.py) and (b) stages each
 frame onto the device with ``jax.device_put`` ahead of consumption, keeping

@@ -3,7 +3,7 @@
 The reference's display stack is interactive OpenGL: SDL window
 (Window.cpp), Phong point-cloud shader (MainShader.frag), fly camera
 (camera.cpp), debug frustum lines (Frustum.cpp), and PNG texture dumps
-(SDFRenderer.cpp:139-149).  On TPU there is no window; the equivalent
+(SDFRenderer.cpp:139-149).  Here there is no window; the equivalent
 surface is offline rendering — raycast any viewpoint (ops/splat.py or
 ops/raycast.py), shade it here, and write PNGs.  Every capability maps:
 
